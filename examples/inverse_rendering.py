@@ -4,7 +4,7 @@ target image by gradient descent (BASELINE.json config #5 — a capability
 the forward-only reference has no analogue for).
 
 Recovers, in one optimization: a sphere's center and radius, and a
-material albedo. Run on CPU or TPU:
+material albedo. Run on the GPU, or on the CPU with --cpu:
 
     python examples/inverse_rendering.py [--steps 150] [--cpu]
 """

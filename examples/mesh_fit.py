@@ -2,8 +2,8 @@
 """Mesh-scale inverse rendering: recover a teapot's POSE (translation)
 from a target image by gradient descent through the renderer.
 
-The mesh path uses the winner-recompute split (diff_trace.py): the
-flash kernel finds winning triangles under stop-gradient, a per-ray
+The mesh path uses the winner-recompute split (diff_trace.py): a
+brute-force scan finds winning triangles under stop-gradient, a per-ray
 differentiable Möller-Trumbore recompute carries gradients into the
 (traced) vertex positions, and edge-aware factors supply the
 silhouette/occlusion coverage terms. The 6,320-triangle teapot is the
@@ -20,7 +20,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--size", type=int, default=64)
@@ -31,9 +31,9 @@ def main():
                     help="optional triangle-count cap (0 = full teapot)")
     ap.add_argument("--goat", action="store_true",
                     help="goat-class scene: 5x5 teapot grid, 158k "
-                         "triangles (round 5 — feasible because the "
-                         "winner pass AND the silhouette-margin "
-                         "selection both run as flash sweeps)")
+                         "triangles (the winner pass and the "
+                         "silhouette-margin selection run the dense "
+                         "O(rays x triangles) scan)")
     ap.add_argument("--init", type=float, default=0.5,
                     help="scale of the initial pose offset; far inits "
                          "(>~1) leave the silhouette attraction basin "
@@ -61,11 +61,14 @@ def main():
                          "over the first 60%% of steps (1.0 = off). "
                          "Far inits (--init >= 1) need it: the tight "
                          "band's silhouette gradient turns unreliable "
-                         "mid-range (tools/occl_grad_probe.py, round "
-                         "4); eps is traced, so the schedule costs no "
+                         "mid-range; eps is traced, so the schedule costs no "
                          "recompiles")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
 
+
+def run(args, log=print):
+    """Run the pose fit; returns ``(losses, final pose error, initial
+    pose error)``. ``losses`` holds one value per step."""
     if args.cpu:
         from zraytrace_tpu.runtime import force_cpu
 
@@ -82,9 +85,7 @@ def main():
 
     from zraytrace_tpu import scene as sc
     from zraytrace_tpu.camera import make_camera
-    from zraytrace_tpu.geometry.bvh import build_tri_bvh
     from zraytrace_tpu.io.obj import read_obj
-    from zraytrace_tpu.ops.flash_intersect import pack_tri_planes
     from zraytrace_tpu.render_diff import render_diff
     from zraytrace_tpu.scenes import assets_dir
     from zraytrace_tpu.scene import SceneBuilder
@@ -99,7 +100,7 @@ def main():
     bld.add_sphere((0.0, -102.33, 7.0), 100.0, green)
     red = bld.add_lambertian_color((0.7, 0.15, 0.1))
     if args.goat:
-        # the goat-class stand-in (tools/goat_probe.py): 25 teapots
+        # the goat-class stand-in: 25 teapots
         a_np, b_np, c_np = (np.asarray(x) for x in (a0, b0, c0))
         pa, pb, pc = [], [], []
         for gx in range(5):
@@ -121,11 +122,6 @@ def main():
         camera = make_camera((0.0, 3.0, -9.0), (0.0, 1.0, 5.0),
                              (0.0, 1.0, 0.0), 50.0, 1.0)
 
-    # translation preserves relative triangle positions, so the BVH
-    # chunk order is computed once and the planes repacked (traced)
-    # inside the step from the current pose
-    order = build_tri_bvh(base.tri_a, base.tri_b, base.tri_c).prim_order
-
     def scene_at(off):
         return base._replace(tri_a=base.tri_a + off,
                              tri_b=base.tri_b + off,
@@ -133,8 +129,6 @@ def main():
 
     def image_at(off, eps):
         scene = scene_at(off)
-        tri_flash = pack_tri_planes(scene.tri_a, scene.tri_b,
-                                    scene.tri_c, order=order)
         # occlusion term default: CAMERA SEGMENTS only (round 4) — a
         # 6k-triangle mesh has thousands of internal t-crossings on
         # bounce rays whose tight-bandwidth terms are zero-mean but
@@ -144,7 +138,6 @@ def main():
             args.occlusion]
         return render_diff(scene, camera, args.size, args.size,
                            args.spp, args.depth, mesh_fast=True,
-                           tri_flash=tri_flash,
                            edge_eps=(eps, 2 * eps),
                            edge_screen=args.screen or None,
                            edge_occlusion=occ)
@@ -174,23 +167,28 @@ def main():
 
     t0 = time.time()
     off1, state1, val = step(off, state, eps_at(0))
-    jax.block_until_ready(val)
-    print(f"compile+step0: {time.time() - t0:.1f}s "
-          f"(tris={base.n_triangles})", flush=True)
+    losses = [float(val)]
+    log(f"compile+step0: {time.time() - t0:.1f}s "
+        f"(tris={base.n_triangles})")
 
     t0 = time.time()
     off, state = off1, state1
     for i in range(1, args.steps):
         off, state, val = step(off, state, eps_at(i))
+        losses.append(float(val))
         if i % 10 == 0 or i == args.steps - 1:
             err = float(jnp.linalg.norm(off - true_off))
-            print(f"step {i:3d} loss {float(val):.3e} "
-                  f"|pose error| {err:.4f}", flush=True)
+            log(f"step {i:3d} loss {losses[-1]:.3e} |pose error| {err:.4f}")
     err = float(jnp.linalg.norm(off - true_off))
     dt = time.time() - t0
-    print(f"{args.steps - 1} steps in {dt:.1f}s "
-          f"({dt / max(args.steps - 1, 1):.2f}s/step); "
-          f"pose error {float(jnp.linalg.norm(init_off)):.3f} -> {err:.4f}")
+    log(f"{args.steps - 1} steps in {dt:.1f}s "
+        f"({dt / max(args.steps - 1, 1):.2f}s/step); "
+        f"pose error {float(jnp.linalg.norm(init_off)):.3f} -> {err:.4f}")
+    return losses, err, float(jnp.linalg.norm(init_off))
+
+
+def main(argv=None):
+    _, err, _ = run(parse_args(argv), log=lambda s: print(s, flush=True))
     if err > 0.08:
         print("WARNING: pose did not converge", file=sys.stderr)
         return 1

@@ -126,43 +126,8 @@ def test_fit_checkpoint_rejects_config_change(tmp_path):
             checkpoint_path=ck, checkpoint_every=1)
 
 
-def test_checkpointed_megakernel_resume_bitexact(tmp_path):
-    """render_checkpointed routes sphere scenes through the megakernel
-    (use_pallas) — resume must stay bit-identical and counters must
-    match an unchunked render() of the same config (streams keyed by
-    absolute sample index)."""
-    from zraytrace_tpu.render import render
-    from zraytrace_tpu.scenes import three_balls
-
-    built = three_balls()
-    params = RenderParams(width=16, height=16, samples_per_pixel=6,
-                          max_depth=3, use_pallas=True)
-    p1, p2 = tmp_path / "a.npz", tmp_path / "b.npz"
-    img_full, st_full = render_checkpointed(
-        built.scene, built.camera, params, p1, chunk_spp=2)
-
-    partial = RenderParams(width=16, height=16, samples_per_pixel=2,
-                           max_depth=3, use_pallas=True)
-    render_checkpointed(built.scene, built.camera, partial, p2,
-                        chunk_spp=2)
-    img_res, st_res = render_checkpointed(
-        built.scene, built.camera, params, p2, chunk_spp=2)
-    np.testing.assert_array_equal(img_full, img_res)
-    assert st_full.rays == st_res.rays
-
-    img_r, st_r = render(built.scene, built.camera, params)
-    assert st_r.rays == st_full.rays
-    assert st_r.samples == st_full.samples
-    d = np.abs(np.asarray(img_r) - img_full)
-    assert np.median(d) < 1e-5 and (d > 1e-4).mean() < 0.05
-
-
-def test_checkpointed_mesh_megakernel_resume(tmp_path):
-    """Mixed scenes route through the deferred-mesh-hit megakernel in
-    render_checkpointed (pallas_mesh=True forces interpret mode on
-    CPU); resume bit-identical, counters equal render()'s."""
+def _mixed_scene():
     from zraytrace_tpu import camera as cam
-    from zraytrace_tpu.render import render
     from zraytrace_tpu.scene import SceneBuilder
 
     b = SceneBuilder()
@@ -174,18 +139,33 @@ def test_checkpointed_mesh_megakernel_resume(tmp_path):
                       [[1.3, 0.5, -1.0]]], np.float32)
     b.add_triangles(tri[0], tri[1], tri[2],
                     b.add_metal_color((0.9, 0.9, 0.9)))
-    scene = b.build()
     camera = cam.make_camera((0, 0.5, 2.0), (0.3, 0, -1), (0, 1, 0),
                              60.0, 1.0)
+    return b.build(), camera
 
-    params = RenderParams(width=16, height=16, samples_per_pixel=4,
-                          max_depth=3, pallas_mesh=True)
+
+@pytest.mark.parametrize("scene_kind", ["spheres", "mesh"])
+def test_checkpointed_resume_bitexact_scene(tmp_path, scene_kind):
+    """Stop after one chunk and resume: the image is bit-identical to an
+    uninterrupted checkpointed run, and the counters equal an unchunked
+    render() (streams keyed by absolute sample index)."""
+    from zraytrace_tpu.render import render
+    from zraytrace_tpu.scenes import three_balls
+
+    if scene_kind == "spheres":
+        built = three_balls()
+        scene, camera = built.scene, built.camera
+    else:
+        scene, camera = _mixed_scene()
+    params = RenderParams(width=16, height=12, samples_per_pixel=6,
+                          max_depth=3)
     p1, p2 = tmp_path / "a.npz", tmp_path / "b.npz"
     img_full, st_full = render_checkpointed(scene, camera, params, p1,
                                             chunk_spp=2)
-    partial = RenderParams(width=16, height=16, samples_per_pixel=2,
-                           max_depth=3, pallas_mesh=True)
+    partial = RenderParams(width=16, height=12, samples_per_pixel=2,
+                           max_depth=3)
     render_checkpointed(scene, camera, partial, p2, chunk_spp=2)
+    assert load_checkpoint(p2).samples_done == 2
     img_res, st_res = render_checkpointed(scene, camera, params, p2,
                                           chunk_spp=2)
     np.testing.assert_array_equal(img_full, img_res)
@@ -193,6 +173,8 @@ def test_checkpointed_mesh_megakernel_resume(tmp_path):
 
     img_r, st_r = render(scene, camera, params)
     assert st_r.rays == st_full.rays
+    assert st_r.samples == st_full.samples
+    np.testing.assert_allclose(img_r, img_full, rtol=1e-5, atol=1e-6)
 
 
 def test_sharded_checkpointed_resume_bitexact(tmp_path):
@@ -238,20 +220,18 @@ def test_sharded_checkpointed_resume_bitexact(tmp_path):
 
 
 def test_checkpoint_rejects_engine_switch(tmp_path):
-    """The fingerprint covers the RESOLVED engine: a checkpoint written
-    by the megakernel must refuse to resume on the XLA engine (their
-    float orders and borderline-comparison events differ — blending
-    them would corrupt the accumulation silently; round-4 review)."""
-    from zraytrace_tpu.scenes import three_balls
-
-    built = three_balls()
+    """The fingerprint covers the RESOLVED triangle engine: a checkpoint
+    written with the BVH traversal must refuse to resume on the brute
+    scan (their borderline-comparison events can differ — blending them
+    would corrupt the accumulation silently)."""
+    scene, camera = _mixed_scene()
     p = tmp_path / "ck.npz"
     render_checkpointed(
-        built.scene, built.camera,
+        scene, camera,
         RenderParams(width=16, height=16, samples_per_pixel=2,
-                     max_depth=3, use_pallas=True), p, chunk_spp=2)
+                     max_depth=3, bvh_min_triangles=0), p, chunk_spp=2)
     with pytest.raises(ValueError, match="different scene"):
         render_checkpointed(
-            built.scene, built.camera,
+            scene, camera,
             RenderParams(width=16, height=16, samples_per_pixel=4,
-                         max_depth=3, use_pallas=False), p, chunk_spp=2)
+                         max_depth=3, bvh=False), p, chunk_spp=2)

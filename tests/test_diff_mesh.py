@@ -5,8 +5,7 @@ path's forward image exactly (same discrete winners, same f32-level
 math), (b) produce the SAME gradients at fixed topology — non-winning
 triangles sit behind ``where`` selects in the brute path, so both
 compute the same local function — and (c) agree with finite
-differences. The flash winner pass (interpret mode on CPU) must pick
-the same winners as the brute pass.
+differences.
 
 Reference mesh scenes: scenes.zig:102-232; gradient plan SURVEY.md §7.7.
 """
@@ -78,13 +77,12 @@ def test_forward_matches_wavefront():
     np.testing.assert_allclose(img_fast, img_diff, atol=2e-5)
 
 
-def _loss_grads(scene, camera, mesh_fast, tri_flash=None, w=10, h=10,
-                spp=4, depth=3):
+def _loss_grads(scene, camera, mesh_fast, w=10, h=10, spp=4, depth=3):
     params, static = split_scene(scene)
 
     def loss(p):
         img = render_diff(merge_scene(p, static), camera, w, h, spp, depth,
-                          mesh_fast=mesh_fast, tri_flash=tri_flash)
+                          mesh_fast=mesh_fast)
         return jnp.mean((img - 0.25) ** 2)
 
     return jax.grad(loss)(params)
@@ -128,56 +126,3 @@ def test_grad_vs_finite_difference_vertex():
     assert np.isfinite(float(g))
     np.testing.assert_allclose(float(g), float(fd), rtol=0.15,
                                atol=1e-7)
-
-
-def test_flash_winner_pass_matches_brute():
-    """The flash-kernel winner pass (interpret mode on CPU) must pick
-    the same winners: identical forward image at a 512-aligned lane
-    count."""
-    from zraytrace_tpu.diff_trace import pack_for_diff
-
-    scene, camera = _mesh_scene()
-    tri_flash = pack_for_diff(scene)
-    assert tri_flash.attrs is None
-    w, h = 32, 16  # 512 lanes
-    img_brute = np.asarray(render_diff(scene, camera, w, h, 2, 3,
-                                       mesh_fast=True))
-    img_flash = np.asarray(render_diff(scene, camera, w, h, 2, 3,
-                                       mesh_fast=True, tri_flash=tri_flash))
-    np.testing.assert_allclose(img_brute, img_flash, atol=2e-5)
-
-
-def test_flash_winner_grads_finite():
-    from zraytrace_tpu.diff_trace import pack_for_diff
-
-    scene, camera = _mesh_scene()
-    tri_flash = pack_for_diff(scene)
-    g = _loss_grads(scene, camera, mesh_fast=True, tri_flash=tri_flash,
-                    w=32, h=16, spp=2, depth=3)
-    gv = np.asarray(g["tri_a"])
-    assert np.all(np.isfinite(gv))
-    assert np.abs(gv).max() > 0.0
-
-
-def test_fit_tri_order_routes_flash_same_grads():
-    """inverse.make_loss_fn(tri_order=...) — the auto-routing fit()
-    engages on TPU — must produce the same loss and the same gradients
-    as the brute winner pass (the flash winner pass picks identical
-    winners; plane repacking happens from the traced vertices)."""
-    from zraytrace_tpu.geometry.bvh import build_tri_bvh
-    from zraytrace_tpu.inverse import make_loss_fn
-
-    scene, camera = _mesh_scene()
-    params, static = split_scene(scene)
-    w, h = 32, 16  # 512 lanes: the flash pass's alignment grain
-    target = jnp.zeros((h, w, 3), jnp.float32)
-    order = build_tri_bvh(scene.tri_a, scene.tri_b,
-                          scene.tri_c).prim_order
-
-    args = (static, camera, target, w, h, 2, 3)
-    g_brute = jax.grad(make_loss_fn(*args, seed=5))(params)
-    g_flash = jax.grad(make_loss_fn(*args, seed=5, tri_order=order))(params)
-    for k in g_brute:
-        np.testing.assert_allclose(
-            np.asarray(g_brute[k]), np.asarray(g_flash[k]),
-            rtol=2e-4, atol=1e-6, err_msg=k)

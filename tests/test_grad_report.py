@@ -4,7 +4,7 @@ config so regressions in any estimator (edge-aware silhouettes,
 occlusion, the Fresnel branch score factor) show up as a metric jump.
 
 The full-config artifact (GRAD_REPORT.json, 64x64 at the class spp
-scales, TPU) is produced by ``python tools/grad_report.py``."""
+scales, on the GPU) is produced by ``python tools/grad_report.py``."""
 
 import sys
 from pathlib import Path

@@ -74,24 +74,3 @@ def test_random_in_unit_sphere_properties():
     assert r.max() <= 1.0
     # Uniform in the ball: E[r] = 3/4.
     np.testing.assert_allclose(r.mean(), 0.75, atol=0.01)
-
-
-def test_uniform4_i32_bitexact():
-    """The Mosaic-fast int32 reformulation must match uniform4 bit for
-    bit across streams and key ranges (it feeds the megakernel)."""
-    import numpy as np
-
-    from zraytrace_tpu import rng as zrng
-
-    rs = np.random.default_rng(3)
-    pixel = jnp.asarray(rs.integers(0, 1 << 22, (4096,)), jnp.int32)
-    sample = jnp.asarray(rs.integers(0, 100000, (4096,)), jnp.int32)
-    bounce = jnp.asarray(rs.integers(0, 31, (4096,)), jnp.int32)
-    for stream in (zrng.STREAM_CAMERA, zrng.STREAM_SCATTER,
-                   zrng.STREAM_GENERIC):
-        ref = zrng.uniform4(42, pixel, sample, bounce, stream)
-        s_i32 = np.int32(np.uint32(42 ^ stream))
-        got = zrng.uniform4_i32(jnp.int32(s_i32), pixel, sample, bounce)
-        for k in range(4):
-            np.testing.assert_array_equal(
-                np.asarray(ref[..., k]), np.asarray(got[k]), err_msg=str(k))

@@ -10,14 +10,19 @@ differences (wrong geometry/material/texture/gamma) would dwarf it.
     python tools/compare_reference.py ours.png theirs.png
 """
 
+import os
 import sys
 
 import numpy as np
-from PIL import Image
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from zraytrace_tpu.io.png import decode_png  # noqa: E402
 
 
 def load(p):
-    return np.asarray(Image.open(p).convert("RGB"), np.float64)
+    with open(p, "rb") as f:
+        return decode_png(f.read())[..., :3].astype(np.float64)
 
 
 def main():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Gradient-quality report: grad-vs-FD max relative error per parameter
 class — the second BASELINE.json metric ("rays/sec/chip ...;
-grad-vs-FD max error"). Writes GRAD_REPORT.json next to BENCH_r*.json.
+grad-vs-FD max error"). Writes GRAD_REPORT.json.
 
 Methodology (the one tests/test_edge_grad.py validates): because the
 RNG is a stateless hash of (pixel, sample, bounce), the loss is
@@ -310,12 +310,14 @@ def main():
     ap.add_argument("--spp", type=int, default=128)
     ap.add_argument("--out", default="GRAD_REPORT.json")
     args = ap.parse_args()
+    from zraytrace_tpu.runtime import (
+        enable_compilation_cache, force_cpu, require_gpu,
+    )
+
     if args.cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-    from zraytrace_tpu.runtime import enable_compilation_cache
-
+        force_cpu()
+    else:
+        require_gpu("grad_report")
     enable_compilation_cache()
     t0 = time.time()
     report = compute_report(width=args.size, height=args.size,
@@ -323,7 +325,9 @@ def main():
     report["wall_seconds"] = round(time.time() - t0, 1)
     import jax
 
-    report["device"] = jax.devices()[0].device_kind
+    dev = jax.devices()[0]
+    report["device"] = dict(platform=dev.platform, kind=dev.device_kind,
+                            count=len(jax.devices()))
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"metric": "grad_vs_fd_max_rel_error",

@@ -1,8 +1,8 @@
-"""zraytrace_tpu — a TPU-native differentiable Monte Carlo path tracer in JAX.
+"""zraytrace_tpu — a differentiable Monte Carlo path tracer in JAX.
 
 A from-scratch re-design of the feature set of jsyrjala/zraytrace (a
 single-threaded CPU Zig ray tracer) as a batched, differentiable, sharded
-JAX/XLA/Pallas framework:
+JAX/XLA framework:
 
 - flat SoA scene arrays instead of tagged-union object graphs
 - a wavefront bounce loop (``lax.while_loop`` with ray regeneration)
@@ -19,13 +19,14 @@ JAX/XLA/Pallas framework:
 
 __version__ = "0.1.0"
 
-# TPU matmuls default to bf16 passes; the intersection math decomposes
-# dot products into matmuls whose operands cancel catastrophically (e.g.
-# |oc|^2 - r^2 for the r=100 ground sphere), and bf16 there produces
-# phantom hits — measured as rays/sample inflating from the reference's
-# 2.14 to 4.85 on TPU. Full f32 precision is a correctness requirement
-# for this framework, not a tuning choice. Opt out (at your own risk)
-# with ZRAYTRACE_FAST_MATMUL=1.
+# XLA may run f32 matmuls at reduced precision by default (TF32 tensor
+# cores on NVIDIA GPUs: 10-bit mantissa). The intersection math
+# decomposes dot products into matmuls whose operands cancel
+# catastrophically (e.g. |oc|^2 - r^2 for the r=100 ground sphere), and
+# one-hot table lookups are matmuls too; reduced precision there
+# produces phantom hits and wrong material ids. Full f32 precision is a
+# correctness requirement for this framework, not a tuning choice. Opt
+# out (at your own risk) with ZRAYTRACE_FAST_MATMUL=1.
 import os as _os
 
 if _os.environ.get("ZRAYTRACE_FAST_MATMUL", "0") != "1":

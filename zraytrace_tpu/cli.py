@@ -13,10 +13,12 @@ import os
 import sys
 
 
-def main(argv=None) -> int:
+def run(argv=None):
+    """Parse ``argv``, render, write the image; returns
+    ``(image, RenderStats)``."""
     parser = argparse.ArgumentParser(
         prog="zraytrace-tpu",
-        description="TPU-native differentiable path tracer "
+        description="Differentiable path tracer on the GPU "
         "(usage mirrors the reference: main.zig:16)",
     )
     parser.add_argument("width", type=int)
@@ -31,13 +33,18 @@ def main(argv=None) -> int:
     parser.add_argument("--ppm", action="store_true",
                         help="also write a P3 PPM next to the PNG")
     parser.add_argument("--cpu", action="store_true",
-                        help="render on the host CPU instead of the TPU")
+                        help="render on the host CPU (explicit opt-in; "
+                        "without it the CLI requires a GPU)")
     args = parser.parse_args(argv)
 
-    from zraytrace_tpu.runtime import enable_compilation_cache, force_cpu
+    from zraytrace_tpu.runtime import (
+        enable_compilation_cache, force_cpu, require_gpu,
+    )
 
     if args.cpu:
         force_cpu()
+    else:
+        require_gpu("zraytrace-tpu")
     enable_compilation_cache()
 
     from zraytrace_tpu.config import RenderParams
@@ -78,6 +85,11 @@ def main(argv=None) -> int:
     print_render_report(stats)
     print("Phase timings:", file=sys.stderr)
     timer.report()
+    return image, stats
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

@@ -1,7 +1,7 @@
 """Render configuration.
 
-Mirrors the reference ``RenderParams`` (raytrace.zig:102-108) plus
-TPU-specific knobs the reference has no analogue for.
+Mirrors the reference ``RenderParams`` (raytrace.zig:102-108) plus the
+few knobs the reference has no analogue for.
 """
 
 from __future__ import annotations
@@ -9,8 +9,9 @@ from __future__ import annotations
 import dataclasses
 
 # Global dtype policy: f32 compute everywhere, matching the reference's
-# ``BaseFloat = f32`` (base.zig:2). The path tracer is VPU/bandwidth bound,
-# so bf16 buys little and costs precision in the quadratic solves.
+# ``BaseFloat = f32`` (base.zig:2). The path tracer is elementwise and
+# bandwidth bound, so bf16 buys little and costs precision in the
+# quadratic solves.
 import jax.numpy as jnp
 
 FLOAT = jnp.float32
@@ -33,90 +34,19 @@ class RenderParams:
     samples_per_pixel: int = 100
     max_depth: int = 30
     bvh: bool = True
-    # --- TPU-specific knobs (no reference analogue) ---
+    # --- knobs with no reference analogue ---
     # Random seed for the stateless RNG streams.
     seed: int = 42
     # Maximum number of rays resident in one wavefront. Images with more
-    # pixels than this are traced tile by tile.
+    # pixels than this give each lane several pixels (slots).
     max_wavefront: int = 1 << 20
-    # Use the Pallas megakernel path when available (else pure-XLA
-    # wavefront). None = auto: on for sphere-only scenes on a real TPU
-    # (the bench engine, ~10x the XLA wavefront), off elsewhere (the
-    # interpreter-mode kernel on CPU is for tests only). True forces it
-    # even on CPU; False forces the XLA wavefront everywhere.
-    use_pallas: bool | None = None
-    # Max bounce iterations per megakernel launch (ops/bounce_kernel3):
-    # launches exit early when deferred-texel blocks pile up, so this is
-    # a cap; larger amortizes the per-launch texture gather further
-    # (PERF.md rounds 2-3).
-    # 160 with exit_frac=1/2, K_TEX=6, N_CACHE=8, r_blk=32,
-    # sample_groups=8 and 65536 lanes won the round-4 repeat sweep
-    # (~753M rays/s, 4 runs within +-0.15%; PERF.md round 4 — the
-    # park-fold/single-pass record redesign made the extra texel slots
-    # affordable).
-    pallas_bounces: int = 160
-    # Megakernel wavefront width. Narrower-than-max lanes give each lane
-    # more pixel windows, which shrinks the per-lane texel-miss MAXIMUM
-    # relative to its mean (the launch count is pinned by the max): 65536
-    # lanes beat 131072 and 262144 on the official bench (PERF.md).
-    pallas_max_wavefront: int = 65536
-    # Megakernel grid-block rows: 32-row blocks let each block's
-    # while_loop exit adaptively (PERF.md round-3 continuation).
-    pallas_r_blk: int = 32
-    # Sample-interleave factor for the megakernel: each pixel's spp is
-    # split into this many windows traced by different lanes, cutting
-    # the per-lane texel-event maximum that pins the launch count
-    # (PERF.md round 3). Clamped to spp at trace time. G=16 won at
-    # 131072 lanes; at the 65536-lane default the occupancy is already
-    # high and the cheaper G=8 fold wins.
-    pallas_sample_groups: int = 8
-    # Profile-balanced lane map (balance.py): a one-time cached
-    # calibration render assigns pixel columns to lane orbits by
-    # measured texel-miss cost, flattening the per-lane maximum that
-    # pins megakernel launches. None = auto: on for TPU sphere-scene
-    # megakernel renders with >= 1e8 pixel-samples (where the round-4
-    # exit-1/2 stretch makes it worth ~3-4%; the calibration is
-    # disk-cached so only the first render of a (scene, camera, size)
-    # pays it). render_sharded applies it only on single-device meshes
-    # (the orbit rotation needs the full contiguous lane space).
-    pallas_balance: bool | None = None
-    # Route MESH scenes through the bounce megakernel too (deferred
-    # mesh-hit stall, ops/bounce_kernel3): segments that can reach the
-    # mesh root AABB block in-kernel and are batch-resolved with one
-    # flash call per launch; everything else bounces at megakernel
-    # speed. Requires const-color triangle materials (true for every
-    # reference scene). None = auto: ON for mixed scenes on a real TPU
-    # — hardware-measured 1.1-3.8x faster than the XLA wavefront on
-    # every mixed reference scene (tools/mesh_pallas_probe.py,
-    # render.mesh_pallas_wanted). True forces it (CPU interpret mode:
-    # tests); False keeps the XLA wavefront + per-bounce flash path.
-    pallas_mesh: bool | None = None
-    # Sample-interleave for the XLA wavefront (mesh scenes): same
-    # rotated-base schedule, implemented in the XLA loop. Spreads heavy
-    # pixels' samples over G lanes, cutting lockstep occupancy waste.
-    # None = auto (render.wavefront_groups): G=4 for goat-scale meshes
-    # (>= 32768 triangles), where dispatches are straggler-bound and the
-    # interleave is hardware-measured +11% (1.89M -> 2.09M rays/s,
-    # PERF.md round 3); G=1 below that — teapot-size interleave was a
-    # measured loss (fold + regen overhead, PERF.md round 2) and G=1
-    # keeps the historical float summation order for oracle-exact
-    # tests. An explicit int forces the factor on any scene (but
-    # non-tile-coherent paths always run G=1 — render.wavefront_groups).
-    # NOTE: the None default changes image BITS (float summation order
-    # only; streams/counters unchanged) at >= 32768 triangles vs
-    # pre-round-3 builds — reproducing those goat-scale images needs an
-    # explicit wavefront_sample_groups=1.
-    wavefront_sample_groups: int | None = None
-    # Minimum triangle count before the gather-bound BVH traversal is
-    # used instead of the streaming flash kernel. Counterintuitive TPU
-    # result (PERF.md): random-index gathers cost ~5ns/row, so lockstep
-    # traversal loses to chunk streaming at EVERY measured size — and
-    # the flash kernel now consumes the BVH anyway (its leaf order makes
-    # chunks spatially tight). The traversal stays available (tested,
-    # and the right answer on gather-friendly backends); effectively
-    # disabled by default. The reference's own threshold is 10 surfaces
-    # (raytrace.zig:127) — correct for a scalar CPU, wrong here.
-    bvh_min_triangles: int = 1 << 30
+    # The BVH traversal replaces the brute-force triangle scan above this
+    # many triangles (render.maybe_build_bvh) — the reference's own
+    # threshold of 10 surfaces (raytrace.zig:127). On an H100 (700 W
+    # limit) the BVH rendered the teapot (6,320 triangles, 700x700,
+    # 64 spp, depth 20) at 9.06M rays/s against brute force's 2.06M
+    # (PERF.md).
+    bvh_min_triangles: int = 10
 
     def __post_init__(self):
         if self.width <= 0 or self.height <= 0:

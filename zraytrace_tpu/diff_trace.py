@@ -7,11 +7,10 @@ vertex arrays even though all non-winning contributions are zero at
 fixed topology (they sit behind ``where`` selects). This module splits
 the query the way SURVEY.md §7.7 prescribes for discrete choices:
 
-1. WINNER PASS (stop-gradient): any fast engine finds the winning
-   triangle index per ray — the rays-on-lanes flash kernel
-   (ops/flash_intersect.py) when available, else the brute chunked
-   scan. All inputs are stop-gradded, so reverse mode never touches
-   this subgraph (argmin/sort winners are piecewise-constant anyway).
+1. WINNER PASS (stop-gradient): the brute chunked scan finds the
+   winning triangle index per ray. All inputs are stop-gradded, so
+   reverse mode never touches this subgraph (argmin winners are
+   piecewise-constant anyway).
 2. RECOMPUTE (differentiable): the winner's vertices are gathered and
    the Möller-Trumbore determinant form (triangle.zig:48-71, identical
    math to geometry/triangle.py) is recomputed per ray on just that
@@ -46,45 +45,16 @@ from zraytrace_tpu.scene import Scene
 _BIG = np.float32(3.4e38)
 
 
-def pack_for_diff(scene: Scene):
-    """Flash planes for the differentiable winner pass.
-
-    Packed WITHOUT the const-material attrs table so the kernel returns
-    ORIGINAL triangle ids (flash_intersect_triangles contract) — the
-    recompute gathers ``scene.tri_*[idx]`` directly. BVH-leaf order
-    keeps the chunk AABBs tight (same as render(), render.py)."""
-    from zraytrace_tpu.geometry.bvh import build_tri_bvh
-    from zraytrace_tpu.ops.flash_intersect import pack_tri_planes
-
-    order = build_tri_bvh(scene.tri_a, scene.tri_b, scene.tri_c).prim_order
-    return pack_tri_planes(scene.tri_a, scene.tri_b, scene.tri_c, order=order)
-
-
-def _tri_winner_ids(scene, o, d, ts, t_min, t_max, tri_flash):
+def _tri_winner_ids(scene, o, d, ts, t_min, t_max):
     """Stop-gradient winner pass: (use_tri (N,) bool, idx (N,) i32).
 
-    ``ts``: per-ray closest sphere t (seeds the flash winner and decides
-    the strict tri-beats-sphere merge, render.py trace_closest)."""
+    ``ts``: per-ray closest sphere t (decides the strict tri-beats-sphere
+    merge, render.py trace_closest)."""
     sg = jax.lax.stop_gradient
-    o_s, d_s, ts_s = sg(o), sg(d), sg(ts)
-    n = o.shape[0]
-    if tri_flash is not None and n % 512 == 0:
-        from zraytrace_tpu.ops.flash_intersect import flash_intersect_triangles
-
-        assert tri_flash.attrs is None, (
-            "diff winner pass needs original ids: pack via pack_for_diff()"
-        )
-        # planes may be packed from TRACED vertices inside a fit step
-        # (e.g. pose optimization repacks per step); stop-grad the whole
-        # pytree so reverse mode never reaches the pallas call
-        tri_flash = jax.tree_util.tree_map(sg, tri_flash)
-        _, idx, tri_won, _ = flash_intersect_triangles(
-            tri_flash, o_s, d_s, t_min, t_init=ts_s)
-        return tri_won, idx
     tt, idx, _, _ = intersect_triangles(
-        o_s, d_s, sg(scene.tri_a), sg(scene.tri_b), sg(scene.tri_c),
+        sg(o), sg(d), sg(scene.tri_a), sg(scene.tri_b), sg(scene.tri_c),
         t_min, t_max)
-    return tt < ts_s, idx
+    return tt < sg(ts), idx
 
 
 def _tri_recompute(o, d, av, bv, cv, t_min):
@@ -107,8 +77,7 @@ def _tri_recompute(o, d, av, bv, cv, t_min):
     return t, u, v, vm.normalize_safe(fn)
 
 
-def trace_closest_diff(scene: Scene, o, d, t_min=T_MIN, t_max=_BIG,
-                       tri_flash=None):
+def trace_closest_diff(scene: Scene, o, d, t_min=T_MIN, t_max=_BIG):
     """Drop-in for render.trace_closest with mesh-scale gradients.
 
     Returns the same hit dict; differentiable w.r.t. every scene float
@@ -131,7 +100,7 @@ def trace_closest_diff(scene: Scene, o, d, t_min=T_MIN, t_max=_BIG,
         si = jnp.zeros((n,), jnp.int32)
 
     # --- triangle winner (stop-grad) + differentiable recompute ---
-    use_tri, ti = _tri_winner_ids(scene, o, d, ts, t_min, t_max, tri_flash)
+    use_tri, ti = _tri_winner_ids(scene, o, d, ts, t_min, t_max)
     av, bv, cv = scene.tri_a[ti], scene.tri_b[ti], scene.tri_c[ti]
     t_rec, u_rec, v_rec, n_t = _tri_recompute(o, d, av, bv, cv, t_min)
     # Double-where: recomputed t/u/v on non-winner lanes can be wild

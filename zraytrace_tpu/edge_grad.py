@@ -69,7 +69,7 @@ DEFAULT_EDGE_EPS = 0.01
 # geometric band width varies with triangle shape and viewing distance
 # — at mid-range (teapot scale 0.5) the mix of wide and narrow
 # effective bands biases the pose gradient (cos vs exact FD +0.61,
-# y-axis sign flipped; tools/occl_grad_probe.py). Screen mode divides
+# y-axis sign flipped). Screen mode divides
 # each margin by its sweep speed: triangles use the true geometric
 # distance to the nearest edge (barycentric x edge height, from
 # |fn| = 2*Area) and spheres the geometric limb distance (m_rel * r),
@@ -89,10 +89,15 @@ _KERNEL = _os.environ.get("ZRAYTRACE_EDGE_KERNEL", "log")
 # on its surface (see the _NOSELF note at the sphere near mask).
 _NOSELF = _os.environ.get("ZRAYTRACE_EDGE_NOSELF", "0") == "1"
 
+# Meshes with at least this many triangles run the near-miss/occlusion
+# search as a stop-gradient selection plus a per-ray recompute (see
+# SELECT-RECOMPUTE in silhouette_margin); smaller ones differentiate the
+# dense scan directly.
+SELECT_MIN_TRIANGLES = 64
+
 
 def silhouette_margin(scene: Scene, o, d, h, t_min=1e-3,
-                      tri_chunk: int = 512, screen: bool | None = None,
-                      tri_flash=None):
+                      tri_chunk: int = 512, screen: bool | None = None):
     """Signed relative silhouette margin per ray plus the occlusion
     (second-hit) margin and the near-miss margin: returns ``(margin
     (N,), occ_margin (N,), near_margin (N,))``.
@@ -244,9 +249,7 @@ def silhouette_margin(scene: Scene, o, d, h, t_min=1e-3,
             # contact-line silhouettes (an occluder edge against the
             # surface right behind it, e.g. the teapot spout at
             # mid-range), and excluding them dropped the pose-grad
-            # cosine 0.92 -> 0.65. The cost is an f32-borderline
-            # class: brute/flash selection can disagree on winner-
-            # adjacent candidates (documented in the flash kernel).
+            # cosine 0.92 -> 0.65.
             near = ((det >= DET_EPS) & (tt > t_min)
                     & (tt < t_cap[:, None]) & (m < 0.0))
             m_near = jnp.max(jnp.where(near, m_s, -jnp.inf), axis=-1)
@@ -265,10 +268,9 @@ def silhouette_margin(scene: Scene, o, d, h, t_min=1e-3,
                 mwin = jnp.maximum(mwin, m_w)
             return jnp.maximum(mm, m_near), jnp.minimum(tocc, t_near), mwin
 
-        # SELECT-RECOMPUTE (round 5): the brute chunk loop above is
-        # O(rays x triangles) PER BOUNCE and its reverse-mode transpose
-        # dominated the teapot pose fit (~92% of the step,
-        # tools/diff_decomp.py --teapot). But the gradient of a max
+        # SELECT-RECOMPUTE: the brute chunk loop above is
+        # O(rays x triangles) PER BOUNCE, and its reverse-mode transpose
+        # is as large again at mesh scale. But the gradient of a max
         # (near-miss margin) / min (occlusion t) flows only through the
         # ARG element — so at mesh scale the loop runs once under
         # stop_gradient tracking ARGMAX/ARGMIN indices, and the margin
@@ -277,21 +279,7 @@ def silhouette_margin(scene: Scene, o, d, h, t_min=1e-3,
         # are identical (same selected triangle, same formulas);
         # gradients are identical because max/min subgradients already
         # flow through the arg alone.
-        sel_env = _os.environ.get("ZRAYTRACE_EDGE_SELECT", "auto")
-        sel_mode = (T >= 64 if sel_env == "auto" else sel_env == "1")
-        # FLASH margin selection (round 5): with the original-id flash
-        # planes available (the diff winner pass packs them anyway),
-        # the selection runs as one RL Pallas sweep with SMEM chunk
-        # work lists instead of the dense O(rays x triangles) XLA
-        # matmul scan — same argmax/argmin candidates (reachability is
-        # a superset within (t_min, 2*t_cap]; beyond-2x occlusion
-        # candidates have saturated sigmoids), only tie-break order
-        # can differ.
-        _flash_env = _os.environ.get("ZRAYTRACE_EDGE_FLASH", "auto")
-        use_flash_sel = (sel_mode and tri_flash is not None
-                         and getattr(tri_flash, "attrs", 1) is None
-                         and n % 128 == 0 and _flash_env != "0")
-        if sel_mode:
+        if T >= SELECT_MIN_TRIANGLES:
             sg = jax.lax.stop_gradient
 
             def body_sel(i, carry):
@@ -349,22 +337,11 @@ def silhouette_margin(scene: Scene, o, d, h, t_min=1e-3,
                     wi = jnp.where(bet3, i * tri_chunk + wj, wi)
                 return mm, mi, tocc, ti_, mw, wi
 
-            if use_flash_sel:
-                from zraytrace_tpu.ops.flash_intersect import (
-                    flash_margin_select,
-                )
-
-                tf_sg = jax.tree_util.tree_map(sg, tri_flash)
-                mi, ti_, wi = flash_margin_select(
-                    tf_sg, sg(o), sg(d), sg(t_cap), t_min)
-                if not screen:
-                    wi = jnp.full((n,), -1, jnp.int32)  # uv margin used
-            else:
-                neg1 = jnp.full((n,), -1, jnp.int32)
-                ninf = jnp.full((n,), -jnp.inf)
-                _, mi, _, ti_, _, wi = jax.lax.fori_loop(
-                    0, n_chunks, body_sel,
-                    (ninf, neg1, jnp.full((n,), _BIG), neg1, ninf, neg1))
+            neg1 = jnp.full((n,), -1, jnp.int32)
+            ninf = jnp.full((n,), -jnp.inf)
+            _, mi, _, ti_, _, wi = jax.lax.fori_loop(
+                0, n_chunks, body_sel,
+                (ninf, neg1, jnp.full((n,), _BIG), neg1, ninf, neg1))
             # name the indices so render_diff's remat policy can SAVE
             # them: without this the bounce checkpoint re-runs the
             # whole selection scan in the backward pass (the scan is
@@ -463,8 +440,7 @@ OCC_EPS_SCALE = 0.125
 
 def edge_factor(scene: Scene, o, d, h, eps=DEFAULT_EDGE_EPS,
                 t_min=1e-3, occlusion: bool = True, eps_scale=None,
-                occ_weight=None, screen: bool | None = None,
-                tri_flash=None):
+                occ_weight=None, screen: bool | None = None):
     """Per-ray multiplicative factor: exactly 1.0 forward, silhouette +
     occlusion gradients backward. Multiply into path throughput each
     bounce.
@@ -492,8 +468,7 @@ def edge_factor(scene: Scene, o, d, h, eps=DEFAULT_EDGE_EPS,
     widened band trades O(eps * amp) smoothing bias for actually
     sampling the boundary, the same trade the FD pairing makes."""
     m, m_occ, m_near = silhouette_margin(scene, o, d, h, t_min=t_min,
-                                         screen=screen,
-                                         tri_flash=tri_flash)
+                                         screen=screen)
     eps_list = tuple(eps) if isinstance(eps, (tuple, list)) else (eps,)
     scale = 1.0 if eps_scale is None else jax.lax.stop_gradient(eps_scale)
     log_w = jnp.zeros_like(m)

@@ -5,7 +5,7 @@ Reference: bvh.zig builds a recursive pointer tree (BVHNode.init:171,
 divide:129) with a 3-axes x 3-candidate-splits surface-area heuristic
 (optimal_axis_divide:85-120) and traverses it recursively (hit:187-205).
 The reference's own TODO asks for a flattened array layout (bvh.zig:19-20)
-— this module is that design, TPU-first:
+— this module is that design, for a vectorized device:
 
 - build runs on the host in numpy (it is per-scene preprocessing, exactly
   like the reference's host-side build) using **binned SAH** — a strict
@@ -13,7 +13,7 @@ The reference's own TODO asks for a flattened array layout (bvh.zig:19-20)
 - nodes are emitted in DFS preorder with **skip links** (escape indices):
   traversal needs no stack — a ray either descends to ``node + 1`` on an
   AABB hit or jumps to ``skip[node]``; all rays advance in lockstep
-  vectorized gathers, so the loop maps onto the VPU,
+  vectorized gathers,
 - leaves reference a contiguous range of a permuted primitive array so
   leaf tests are a short static loop of gathers.
 
@@ -303,11 +303,10 @@ def bvh_closest_triangle(bvh: TriBVH, a, b, c, o, d, t_min, t_max):
         max_leaf = LEAF_SIZE
     inv_d = 1.0 / jnp.where(jnp.abs(d_s) > 1e-20, d_s, 1e-20)
 
-    # TPU gathers cost per ROW, nearly independent of row width
-    # (tools/gather_probe*.py), so the node attributes pack into one
-    # (M, 9) table and the leaf primitives into one (T, 10) table in
-    # prim_order — one row gather per traversal step plus LEAF_SIZE row
-    # gathers at leaves, instead of ~10 scalar gathers.
+    # The node attributes pack into one (M, 9) table and the leaf
+    # primitives into one (T, 10) table in prim_order — one row gather
+    # per traversal step plus LEAF_SIZE row gathers at leaves, instead of
+    # ~10 scalar gathers.
     nodes_packed = jnp.concatenate(
         [
             bvh_s.node_min,

@@ -5,15 +5,14 @@ preferred, far root only if the near one is out of range (ray origin inside
 the sphere), spherical UV from acos/atan2, and signed radius giving inward
 normals for the hollow-glass trick (sphere.zig:45, scenes.zig:96).
 
-TPU design notes:
+Design notes:
 - the quadratic coefficients for ALL rays x ALL spheres are assembled from
   two ``(N,3) @ (3,S)`` matmuls — no ``(N,S,3)`` intermediate:
       half_b[n,s] = (o.d)[n] - (d @ centers^T)[n,s]
       c[n,s]     = |o|^2[n] - 2 (o @ centers^T)[n,s] + (|center|^2 - r^2)[s]
 - NO gathers on the hot path: the winning sphere's attributes are fetched
-  with a one-hot ``(N,S) @ (S,K)`` matmul. TPU gathers serialize at a few
-  elements/cycle and dominated the profile (tools/perf_probe.py); one-hot
-  contractions ride the MXU instead.
+  with a one-hot ``(N,S) @ (S,K)`` matmul or a where-chain, which fuse
+  with the surrounding elementwise math.
 """
 
 from __future__ import annotations
@@ -80,9 +79,9 @@ def intersect_spheres_fused(o, d, centers, radii, mat_ids, t_min, t_max):
     """Closest sphere hit with attributes, as ONE fused elementwise chain.
 
     Unrolls the sphere loop (python-level, S is static and small) carrying
-    the running winner — the TPU-fastest formulation for the reference's
-    scene sizes (<= 7 spheres): no (N,S) matrices, no argmin, no one-hot
-    contractions, everything fuses onto the VPU. Strict ``<`` keeps the
+    the running winner — for the reference's scene sizes (<= 7 spheres):
+    no (N,S) matrices, no argmin, no one-hot contractions, everything
+    fuses into one elementwise chain. Strict ``<`` keeps the
     first sphere on ties, matching the reference scan (raytrace.zig:75-81).
 
     Returns dict(t, hit, center (N,3), radius (N,), mat_id (N,)).
@@ -150,9 +149,9 @@ def onehot_rows(idx, table, unroll_max: int = 16):
     """Gather-free ``table[idx]``.
 
     Small tables (the common case: materials, textures, reference scenes)
-    unroll into a where-select chain that fuses entirely onto the VPU;
-    larger ones use a one-hot ``(N,S) @ (S,K)`` MXU contraction. Either
-    way: no TPU gather (they serialize — tools/perf_probe.py).
+    unroll into a where-select chain that fuses with the surrounding
+    elementwise math; larger ones use a one-hot ``(N,S) @ (S,K)``
+    contraction. Either way: no gather.
     ``table``: (S,) or (S, K); result is f32.
     """
     S = table.shape[0]

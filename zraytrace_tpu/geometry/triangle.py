@@ -6,7 +6,7 @@ barycentric ``(u, v)`` reused directly as texture coordinates
 (triangle.zig:66), and one-sided culling via ``det >= 1e-6``
 (triangle.zig:62; backfaces never hit).
 
-TPU design: with the scalar-triple-product identity
+Design: with the scalar-triple-product identity
 ``e2 . ((o - a) x d) = (o x d) . e2 - d . (e2 x a)`` every per-(ray,
 triangle) quantity factors into ``(N,3) @ (3,T)`` matmuls over per-triangle
 precomputed vectors — no ``(N,T,3)`` intermediates:
@@ -16,9 +16,9 @@ precomputed vectors — no ``(N,T,3)`` intermediates:
     v_num    = -((oxd) @ e1^T - d @ (e1 x a)^T)
     t_num    =  o @ fn^T - (a . fn)
 
-Triangles are streamed in chunks through a ``fori_loop`` so VMEM/HBM
-pressure stays bounded for large meshes (brute-force path; the BVH kernel
-gates this per ray for big scenes).
+Triangles are streamed in chunks through a ``fori_loop`` so memory stays
+bounded for large meshes (brute-force path; the BVH traversal replaces it
+for big scenes).
 """
 
 from __future__ import annotations
@@ -92,8 +92,8 @@ def _intersect_chunk(o, d, oxd, pack: TrianglePack, t_min, t_max):
     t = jnp.where(is_hit, t, _BIG)
     idx = jnp.argmin(t, axis=-1).astype(jnp.int32)
     t_best = jnp.min(t, axis=-1)
-    # Winner u/v via a masked reduction instead of take_along_axis: TPU
-    # gathers serialize, masked sums fuse onto the VPU.
+    # Winner u/v via a masked reduction instead of take_along_axis: the
+    # masked sums fuse with the intersection math above.
     oh = idx[:, None] == jnp.arange(t.shape[-1], dtype=jnp.int32)[None, :]
     pick = lambda arr: jnp.sum(jnp.where(oh, arr, 0.0), axis=-1)
     return t_best, idx, pick(u), pick(v)

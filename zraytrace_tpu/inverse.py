@@ -50,31 +50,15 @@ def image_loss(img, target):
 
 
 def make_loss_fn(static, camera, target, width, height, spp, max_depth,
-                 seed=42, edge_eps=None, tri_order=None,
-                 edge_screen: bool | None = None):
+                 seed=42, edge_eps=None, edge_screen: bool | None = None):
     """Single-device differentiable loss over the full image.
 
     ``edge_eps`` enables edge-aware silhouette gradients (edge_grad.py):
     the loss VALUE is unchanged, its gradient gains visibility terms.
-
-    ``tri_order``: BVH-leaf triangle permutation (from the initial
-    vertices). When set, the loss repacks flash planes from the CURRENT
-    (possibly traced) vertices each evaluation and routes the mesh
-    winner pass through the flash kernel — chunk bounds always come
-    from the actual vertices so correctness is order-independent; only
-    chunk tightness decays as the geometry drifts from the order's
-    snapshot. ``fit`` fills this automatically on TPU (VERDICT round-3
-    item 6: no more silent brute O(N*T) winner scans at teapot scale).
     """
 
     def loss_fn(params, eps_scale=None):
         scene = merge_scene(params, static)
-        tf = None
-        if tri_order is not None:
-            from zraytrace_tpu.ops.flash_intersect import pack_tri_planes
-
-            tf = pack_tri_planes(scene.tri_a, scene.tri_b, scene.tri_c,
-                                 order=tri_order)
         eps = edge_eps
         if eps is not None and eps_scale is not None:
             # coarse-to-fine schedules pass a traced per-step bandwidth
@@ -82,9 +66,7 @@ def make_loss_fn(static, camera, target, width, height, spp, max_depth,
             eps = (tuple(e * eps_scale for e in eps)
                    if isinstance(eps, (tuple, list)) else eps * eps_scale)
         img = render_diff(scene, camera, width, height, spp, max_depth,
-                          seed=seed, edge_eps=eps, tri_flash=tf,
-                          edge_screen=edge_screen,
-                          mesh_fast=True if tf is not None else None)
+                          seed=seed, edge_eps=eps, edge_screen=edge_screen)
         return image_loss(img, target)
 
     return loss_fn
@@ -168,22 +150,20 @@ def fit(
     edge_eps`` and decay geometrically to ``edge_eps`` over the first
     60% of steps (1.0 = off). Far initializations need it: the
     tight-band silhouette gradient turns unreliable mid-range
-    (tools/occl_grad_probe.py; the teapot pose fit from init 1.0
+    (the teapot pose fit from init 1.0
     stalls at pose error 0.85 without the schedule and converges to
-    0.066 in 120 steps with it — PERF.md round 4). The multiplier is
+    0.066 in 120 steps with it). The multiplier is
     traced, so the schedule costs no recompiles; checkpoints resume
     bit-identically because the scale is a pure function of the step.
     """
     params, static = split_scene(scene_init)
     target = jnp.asarray(target, jnp.float32)
 
-    # Differentiate ONLY the optimized leaves (round 5): frozen leaves
-    # close over the loss as constants, so their adjoints are never
-    # built. This is not just tidiness — the (A,H,W,3) atlas adjoint
-    # is a scatter-add per bilinear tap per bounce, measured at ~70%
-    # of the whole sphere-albedo fit step on the v5e
-    # (tools/diff_decomp.py, PERF.md round 5); a geometry/color fit
-    # that doesn't move atlas texels must not pay it.
+    # Differentiate ONLY the optimized leaves: frozen leaves close over
+    # the loss as constants, so their adjoints are never built. The
+    # (A,H,W,3) atlas adjoint is a scatter-add per bilinear tap per
+    # bounce; a geometry/color fit that doesn't move atlas texels must
+    # not pay it.
     live = set(optimize_fields) | set(fd_fields)
     frozen = {f: v for f, v in params.items() if f not in live}
     params = {f: v for f, v in params.items() if f in live}
@@ -196,19 +176,9 @@ def fit(
         optax.masked(optax.set_to_zero(), {f: not m for f, m in mask.items()}),
     )
     opt_state = optimizer.init(params)
-    # mesh-scale fits route the winner pass through the flash kernel
-    # (make_loss_fn tri_order) — the order comes from the initial
-    # geometry, the per-step repack from the traced one
-    tri_order = None
-    if (scene_init.n_triangles >= 64 and (width * height) % 512 == 0
-            and jax.default_backend() == "tpu"):
-        from zraytrace_tpu.geometry.bvh import build_tri_bvh
-
-        tri_order = build_tri_bvh(scene_init.tri_a, scene_init.tri_b,
-                                  scene_init.tri_c).prim_order
     loss_fn = make_loss_fn(static, camera, target, width, height, spp,
                            max_depth, seed, edge_eps=edge_eps,
-                           tri_order=tri_order, edge_screen=edge_screen)
+                           edge_screen=edge_screen)
     loss_jit = jax.jit(loss_fn)
     vg_jit = jax.jit(jax.value_and_grad(loss_fn))
 
@@ -274,7 +244,7 @@ def fit(
 # ---------------------------------------------------------------------------
 
 
-def make_sharded_train_step(
+def make_sharded_loss(
     mesh: Mesh,
     static,
     camera: cam.Camera,
@@ -282,11 +252,10 @@ def make_sharded_train_step(
     height: int,
     spp: int,
     max_depth: int,
-    learning_rate: float = 1e-2,
     seed: int = 42,
 ):
-    """Build (step_fn, optimizer, init_opt_state) where step_fn is a jitted
-    SPMD training step over the ``('data', 'sample')`` mesh:
+    """``loss_fn(params, target_flat)``: the pixel-mean squared error of
+    the differentiable render over the ``('data', 'sample')`` mesh:
 
     - pixel lanes sharded over ``data``
     - sample indices sharded over ``sample``
@@ -299,8 +268,6 @@ def make_sharded_train_step(
     n_sample = mesh.shape[SAMPLE_AXIS]
     assert n_pixels % n_data == 0, (n_pixels, n_data)
     assert spp % n_sample == 0, (spp, n_sample)
-
-    optimizer = optax.adam(learning_rate)
 
     def shard_loss(scene, camera, pix_local, samp_local, target_local):
         p_l = pix_local.shape[0]
@@ -324,13 +291,33 @@ def make_sharded_train_step(
     pixel_ids = jnp.arange(n_pixels, dtype=jnp.int32)
     sample_ids = jnp.arange(spp, dtype=jnp.int32)
 
+    def loss_fn(params, target_flat):
+        scene = merge_scene(params, static)
+        return loss_sharded(scene, camera, pixel_ids, sample_ids, target_flat)
+
+    return loss_fn
+
+
+def make_sharded_train_step(
+    mesh: Mesh,
+    static,
+    camera: cam.Camera,
+    width: int,
+    height: int,
+    spp: int,
+    max_depth: int,
+    learning_rate: float = 1e-2,
+    seed: int = 42,
+):
+    """Build ``(step_fn, optimizer)`` where step_fn is a jitted SPMD Adam
+    step on ``make_sharded_loss`` over the ``('data', 'sample')`` mesh."""
+    loss_fn = make_sharded_loss(mesh, static, camera, width, height, spp,
+                                max_depth, seed)
+    optimizer = optax.adam(learning_rate)
+
     @jax.jit
     def step_fn(params, opt_state, target_flat):
-        def loss_fn(params):
-            scene = merge_scene(params, static)
-            return loss_sharded(scene, camera, pixel_ids, sample_ids, target_flat)
-
-        loss, grads = jax.value_and_grad(loss_fn)(params)
+        loss, grads = jax.value_and_grad(loss_fn)(params, target_flat)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         return params, opt_state, loss

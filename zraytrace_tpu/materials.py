@@ -6,8 +6,8 @@ over Lambertian (material.zig:71-77: normal + random unit vector), Metal
 points below the surface) and Dielectric (material.zig:109-128: Schlick
 test + refract/reflect; attenuation always white).
 
-TPU design: every ray evaluates all three scatter candidates with fused
-VPU math and ``jnp.where``-selects by material tag — no divergent
+Design: every ray evaluates all three scatter candidates with fused
+elementwise math and ``jnp.where``-selects by material tag — no divergent
 branches. RNG comes in as precomputed uniforms, replacing the mutable
 ``*Random`` the reference stores inside materials (material.zig:64,101).
 
@@ -30,15 +30,6 @@ from zraytrace_tpu.textures import texture_albedo
 # ratio*sin_theta units (see scatter's branch_grad); same order as the
 # geometric silhouette bandwidths in edge_grad.py.
 TIR_EPS = 0.01
-
-# Probe-only (tools/): when set to a float, the dielectric BRANCH
-# decisions (Schlick test + total-internal-reflection threshold) are
-# evaluated at this fixed IOR while the path math (refraction bending)
-# keeps the scene's. Finite differences with this frozen isolate the
-# smooth path derivative from the branch-flip contribution — the
-# decomposition used to attribute gradient-estimator error. Never set
-# in library code.
-_FREEZE_BRANCH_IOR = None
 
 
 def schlick_reflectance(cosine, ref_ratio):
@@ -82,7 +73,7 @@ def scatter(scene: sc.Scene, d_in, normal, front_face, uv, mat_id, rnd,
       plus ``log_w (N,)`` when ``branch_grad`` is True.
     """
     # Per-lane material attributes via one one-hot (N,M)@(M,3) contraction
-    # instead of three gathers (TPU gathers serialize; see perf_probe).
+    # instead of three gathers.
     from zraytrace_tpu.geometry.sphere import onehot_rows
 
     mtable = jnp.stack(
@@ -116,13 +107,8 @@ def scatter(scene: sc.Scene, d_in, normal, front_face, uv, mat_id, rnd,
     ratio = jnp.where(front_face, 1.0 / ior, ior)
     cos_theta = jnp.minimum(vm.dot(-d_in, normal), 1.0)
     sin_theta = jnp.sqrt(jnp.maximum(0.0, 1.0 - cos_theta * cos_theta))
-    if _FREEZE_BRANCH_IOR is None:
-        ratio_b = ratio
-    else:  # probe-only decomposition (module constant docstring)
-        iorf = jnp.float32(_FREEZE_BRANCH_IOR)
-        ratio_b = jnp.where(front_face, 1.0 / iorf, iorf)
-    cannot_refract = ratio_b * sin_theta > 1.0
-    refl = schlick_reflectance(cos_theta, ratio_b)
+    cannot_refract = ratio * sin_theta > 1.0
+    refl = schlick_reflectance(cos_theta, ratio)
     reflect_now = cannot_refract | (refl > rnd[:, 2])
     die_dir = jnp.where(
         reflect_now[:, None],

@@ -1,8 +1,8 @@
 """Build-and-load for the native components.
 
 Compiles ``native/*.cpp`` into one shared library on first use with g++
-(cached under ~/.cache/zraytrace_tpu, keyed by a source hash) and binds it
-with ctypes. No pybind11 — plain C ABI.
+(cached under ``<checkout>/.native_cache``, keyed by a source hash) and
+binds it with ctypes. No pybind11 — plain C ABI.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+from zraytrace_tpu.runtime import CHECKOUT
 
 _SOURCES = ["bvh_builder.cpp", "obj_parser.cpp"]
 _LIB = None
@@ -27,7 +29,7 @@ def _cache_dir() -> Path:
     d = Path(
         os.environ.get(
             "ZRAYTRACE_NATIVE_CACHE",
-            os.path.expanduser("~/.cache/zraytrace_tpu/native"),
+            CHECKOUT / ".native_cache",
         )
     )
     d.mkdir(parents=True, exist_ok=True)

@@ -3,7 +3,7 @@
 The reference only has wall-clock spans and per-scanline prints
 (raytrace.zig:37-50,139,188-201). Here: phase timers with the same
 published totals (RenderStats carries the counter block), plus optional
-``jax.profiler`` traces for XLA/TPU timelines.
+``jax.profiler`` traces for device timelines.
 """
 
 from __future__ import annotations

@@ -24,7 +24,6 @@ Gradient semantics (SURVEY.md §7.7):
 
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +49,6 @@ def trace_paths(
     edge_eps: float | None = None,
     edge_occlusion: bool | str = True,
     mesh_fast: bool | None = None,
-    tri_flash=None,
     branch_grad: bool = False,
     score_baseline=None,
     edge_screen: bool | None = None,
@@ -72,10 +70,7 @@ def trace_paths(
     differentiable recompute on the winning triangle, instead of
     differentiating the brute O(N*T) scan. Gradients are identical at
     fixed topology (tests/test_diff_mesh.py); default auto: on when the
-    scene has >= 64 triangles. ``tri_flash`` (pack via
-    diff_trace.pack_for_diff) additionally runs the winner pass through
-    the flash kernel when the lane count is 512-aligned — the TPU mesh
-    fast path.
+    scene has >= 64 triangles.
 
     ``branch_grad``: REINFORCE gradient for the stochastic Fresnel
     branch (material.zig:117). The per-bounce branch log-probabilities
@@ -132,7 +127,7 @@ def trace_paths(
     if fast and scene.n_triangles > 0:
         from zraytrace_tpu.diff_trace import trace_closest_diff
 
-        trace = functools.partial(trace_closest_diff, tri_flash=tri_flash)
+        trace = trace_closest_diff
     else:
         trace = trace_closest
 
@@ -153,10 +148,7 @@ def trace_paths(
             f = edge_factor(scene, state["o"], state["d"], h, edge_eps,
                             occlusion=occ_on,
                             eps_scale=state.get("amp"),
-                            occ_weight=occ_w, screen=edge_screen,
-                            tri_flash=(tri_flash if tri_flash is None
-                                       or tri_flash.attrs is None
-                                       else None))
+                            occ_weight=occ_w, screen=edge_screen)
             throughput = throughput * jnp.where(
                 state["alive"], f, 1.0)[:, None]
         rnd = zrng.uniform4(seed, pixel_ids, sample_ids, depth_idx, zrng.STREAM_SCATTER)
@@ -241,7 +233,6 @@ def render_diff(
     edge_eps: float | None = None,
     edge_occlusion: bool | str = True,
     mesh_fast: bool | None = None,
-    tri_flash=None,
     branch_grad: bool = True,
     edge_screen: bool | None = None,
 ):
@@ -261,21 +252,6 @@ def render_diff(
     n = width * height
     pixel_ids = jnp.arange(n, dtype=jnp.int32)
 
-    # Auto-route the flash winner pass (round-4, VERDICT item 6): a
-    # concrete mesh scene on TPU packs its own BVH-ordered flash planes
-    # instead of silently running the brute O(N*T) winner scan per
-    # bounce. Traced vertices (inside a jitted fit step) can't build
-    # the host-side BVH — inverse.fit pre-computes the order and
-    # repacks per step instead (make_loss_fn tri_order).
-    if (tri_flash is None and scene.n_triangles >= 64
-            and (mesh_fast is None or mesh_fast)
-            and n % 512 == 0
-            and jax.default_backend() == "tpu"
-            and not isinstance(scene.tri_a, jax.core.Tracer)):
-        from zraytrace_tpu.diff_trace import pack_for_diff
-
-        tri_flash = pack_for_diff(scene)
-
     def one_spp(carry, s):
         total, stop_total, count = carry
         if branch_grad:
@@ -286,8 +262,7 @@ def render_diff(
             scene, camera, pixel_ids, jnp.full((n,), s, jnp.int32),
             seed, width, height, max_depth, bilinear_textures,
             edge_eps=edge_eps, edge_occlusion=edge_occlusion,
-            mesh_fast=mesh_fast, tri_flash=tri_flash,
-            branch_grad=branch_grad, score_baseline=b,
+            mesh_fast=mesh_fast, branch_grad=branch_grad, score_baseline=b,
             edge_screen=edge_screen,
         )
         return (total + r, stop_total + jax.lax.stop_gradient(r),

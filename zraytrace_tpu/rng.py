@@ -55,8 +55,7 @@ def _to_unit_float(bits: jnp.ndarray) -> jnp.ndarray:
     """uint32 -> float32 uniform in [0, 1) using the top 24 bits.
 
     The intermediate int32 cast is value-preserving (top-24-bit values
-    < 2^24) and required inside Pallas kernels: Mosaic cannot lower a
-    direct uint32 -> float32 cast.
+    < 2^24).
     """
     return (bits >> 8).astype(jnp.int32).astype(jnp.float32) * jnp.float32(
         1.0 / 16777216.0
@@ -85,54 +84,13 @@ def uniform4(seed, pixel, sample, bounce, stream=STREAM_GENERIC) -> jnp.ndarray:
     return _to_unit_float(pcg4d(ctr))
 
 
-def uniform4_i32(seed_c, pixel, sample, bounce):
-    """``uniform4`` restructured for Mosaic: int32 arithmetic, no stacked
-    ``(..., 4)`` counter, no uint32 ops — bit-identical outputs.
-
-    Mosaic lowers uint32 elementwise chains and the stack/slice pattern of
-    ``pcg4d`` ~10x slower than this form (tools/rng_probe.py: 1.48 ms vs
-    0.14 ms per wavefront iteration at 131k lanes); int32 mul/add wrap
-    identically and the logical shifts become masked arithmetic shifts.
-
-    ``seed_c``: the stream-xored seed as int32 (``seed ^ STREAM_*``).
-    Returns four U[0,1) float32 arrays shaped like ``pixel``.
-    """
-    M = jnp.int32(1664525)
-    A = jnp.int32(1013904223)
-    x = pixel.astype(jnp.int32) * M + A
-    y = jnp.asarray(sample, jnp.int32) * M + A
-    z = jnp.asarray(bounce, jnp.int32) * M + A
-    w = jnp.asarray(seed_c, jnp.int32) * M + A
-    w = jnp.broadcast_to(w, x.shape)
-
-    def rsh16(v):
-        # logical >>16 on int32 bits
-        return (v >> 16) & 0xFFFF
-
-    x = x + y * w
-    y = y + z * x
-    z = z + x * y
-    w = w + y * z
-    x = x ^ rsh16(x)
-    y = y ^ rsh16(y)
-    z = z ^ rsh16(z)
-    w = w ^ rsh16(w)
-    x = x + y * w
-    y = y + z * x
-    z = z + x * y
-    w = w + y * z
-    # top 24 bits -> U[0,1), identical to _to_unit_float
-    k = jnp.float32(1.0 / 16777216.0)
-    u24 = lambda v: ((v >> 8) & 0xFFFFFF).astype(jnp.float32) * k
-    return u24(x), u24(y), u24(z), u24(w)
-
-
 def random_unit_vector(u1: jnp.ndarray, u2: jnp.ndarray) -> jnp.ndarray:
     """Uniform random unit vector from two U[0,1) inputs.
 
     Distribution-equivalent to the reference's hemisphere-plus-sign-flip
     scheme (sample.zig:47-62): z uniform in [-1,1), azimuth uniform — an
-    analytic construction with no rejection loop (TPU-hostile).
+    analytic construction with no rejection loop (a data-dependent loop
+    would stall every lane of the wavefront).
     """
     z = u1 * 2.0 - 1.0
     phi = (2.0 * jnp.pi) * u2

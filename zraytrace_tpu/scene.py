@@ -87,36 +87,6 @@ class Scene(NamedTuple):
         return self.n_spheres + self.n_triangles
 
 
-def material_classes(scene: "Scene") -> tuple:
-    """Static per-material classification for the megakernel's
-    restricted where-chains: (textured_ids, dielectric_ids,
-    const_albedo_ids). Host-side only (concrete scene); the ids select
-    which material-table rows each attribute chain visits, cutting the
-    kernel's 11-column x M-row select cost (values still come from the
-    traced table — only the CLASS structure is static)."""
-    mt = np.asarray(scene.mat_type)
-    ttyp = np.asarray(scene.tex_type)[np.asarray(scene.mat_tex)]
-    textured = tuple(int(m) for m in np.where(ttyp == TEX_IMAGE)[0])
-    dielec = tuple(int(m) for m in np.where(mt == DIELECTRIC)[0])
-    const_lm = tuple(
-        int(m) for m in np.where((mt != DIELECTRIC)
-                                 & (ttyp != TEX_IMAGE))[0])
-    return textured, dielec, const_lm
-
-
-def mesh_materials_const(scene: "Scene") -> bool:
-    """True when no TRIANGLE material reads an image texture — true for
-    every reference scene (meshes are single const-color materials,
-    obj_reader.zig:114) — which enables the flash attrs fast path
-    (ops/flash_intersect.TriPlanes.attrs). Host-side only: call with a
-    concrete (untraced) scene."""
-    if int(scene.n_triangles) == 0:
-        return False
-    tm = np.asarray(scene.tri_mat)
-    ttypes = np.asarray(scene.tex_type)[np.asarray(scene.mat_tex)[tm]]
-    return bool((ttypes == TEX_IMAGE).sum() == 0)
-
-
 class SceneBuilder:
     """Host-side scene assembly (numpy), the analogue of the reference's
     scene builder functions (scenes.zig:26-265). ``build()`` produces the

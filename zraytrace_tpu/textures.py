@@ -5,10 +5,10 @@ nearest-neighbor image lookup with u-flip and u/v offsets with single-step
 wrap (texture.zig:52-74). The image rows are stored bottom-up (the PNG
 reader flips vertically, png_image.zig:86), which our loader reproduces.
 
-TPU design: per-lane lookups into the small texture table are one-hot
-``(N,K) @ (K,C)`` matmuls (TPU gathers serialize; matmuls ride the MXU —
-see tools/perf_probe.py). Only the actual texel fetch is a real gather,
-done once per lane against the flattened ``(A*H*W, 3)`` atlas.
+Design: per-lane lookups into the small texture table are where-chains
+or one-hot ``(N,K) @ (K,C)`` matmuls (geometry/sphere.onehot_rows). Only
+the actual texel fetch is a real gather, done once per lane against the
+flattened ``(A*H*W, 3)`` atlas.
 
 Note: the reference wraps ``vv`` by +1 when ``uu_first < 0`` instead of
 ``vv_first < 0`` (texture.zig:66) — a latent bug that can never fire with
@@ -27,9 +27,8 @@ import jax.numpy as jnp
 from zraytrace_tpu import scene as sc
 from zraytrace_tpu.geometry.sphere import onehot_rows
 
-# Sorted-scatter atlas adjoint (round-5 probe): the bilinear taps'
-# gather adjoint is a scatter-add whose measured cost (~41 ns/row on
-# the v5e, tools/diff_decomp.py) dominates the whole fit step. This
+# Sorted-scatter atlas adjoint (experiment, off by default): the
+# bilinear taps' gather adjoint is a scatter-add into the atlas. This
 # custom-vjp wrapper sorts the tap indices in the backward pass and
 # scatters with indices_are_sorted=True (sort of N*4 keys is ~free at
 # fit sizes). Gradient VALUES are identical up to f32 add order.
@@ -103,8 +102,7 @@ def texture_albedo(scene: sc.Scene, tex_id: jnp.ndarray, uv: jnp.ndarray,
     const_color = attrs[:, 1:4]
     # Imageless scenes carry a (1, 1, 1, 3) dummy atlas (scene.py) and
     # can hold no TEX_IMAGE entries: skip the per-lane atlas gather
-    # entirely (~5 ns per ROW on TPU — 0.6 ms/iteration at wavefront
-    # sizes, pure waste for const-only scenes like man/bunny/teapot).
+    # entirely (pure waste for const-only scenes like man/bunny/teapot).
     if scene.atlas.shape[1] == 1 and scene.atlas.shape[2] == 1:
         return const_color
     base = attrs[:, 4]
@@ -130,10 +128,8 @@ def texture_albedo(scene: sc.Scene, tex_id: jnp.ndarray, uv: jnp.ndarray,
         ty = (fy - y0)[:, None]
 
         # ONE batched (N, 4) gather instead of four separate fetches:
-        # XLA then emits ONE scatter for the atlas adjoint — four
-        # separate scatter-adds cost ~211 ms/step on the v5e
-        # sphere-albedo fit vs ~6 ms for one (tools/diff_decomp.py,
-        # round 5). Forward values are bit-identical: each tap's
+        # XLA then emits ONE scatter for the atlas adjoint instead of
+        # four. Forward values are bit-identical: each tap's
         # product keeps the original association
         # (c * weight_x) * weight_y.
         xs = jnp.stack([x0, x0 + 1.0, x0, x0 + 1.0], axis=1)  # (N, 4)

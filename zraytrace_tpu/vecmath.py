@@ -1,8 +1,8 @@
 """Batched 3D vector math over ``(..., 3)`` arrays.
 
-TPU-native replacement for the reference's scalar ``Vec3`` struct
+Batched replacement for the reference's scalar ``Vec3`` struct
 (vector.zig:22-162): every op is elementwise/batched jnp so XLA fuses the
-whole shading chain onto the VPU. No classes — rays are SoA arrays.
+whole shading chain. No classes — rays are SoA arrays.
 """
 
 from __future__ import annotations
